@@ -134,7 +134,7 @@ class TestBatch:
 
 class TestBlockedBatch:
     """Vmapped rank-K eta driver (solve.blocked.run_simplex_blocked_batch):
-    the batch engine for lanes whose tableaus are not VMEM-trivial
+    the batch engine for lanes whose tableaus are not small
     (VERDICT r2 weak #3 / next-item 5)."""
 
     def _random_states(self, B, m, n, seed=0):

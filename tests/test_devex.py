@@ -114,16 +114,6 @@ def test_solve_lp_devex_routes_blocked_for_big_instances():
     assert sol.niter < 1000
 
 
-def test_pallas_devex_supported():
-    # round 4 lifted the r3 rejection: devex pricing rides the Pallas engine
-    from tpulp.corpus import get_case
-
-    case = get_case("textbook")
-    sol = solve_lp(case.lp().lower(), pricing="devex", driver="pallas")
-    assert sol.status == "optimal"
-    assert sol.objective == case.objective
-
-
 def test_default_pricing_autoselects_devex_on_equality_heavy():
     """VERDICT r3 weak #6: solve_lp's default path auto-selects devex for
     equality-heavy shapes — the 96-row case drops from ~2.5k Dantzig pivots

@@ -1,7 +1,7 @@
 """Device (JAX) two-phase simplex: status coverage, parity vs the exact host
 oracle, refinement modes, predicates, and randomized property tests.
 
-Runs on CPU (x64) via conftest; the same code path runs on TPU in bench.py."""
+Runs on CPU (x64) via conftest; the same code path runs on the GPU in bench.py."""
 
 from fractions import Fraction as F
 

@@ -59,8 +59,8 @@ assert s2 == Status.OPTIMAL, s2
 assert abs(z - z2) < 1e-8, (z, z2)
 
 # the TRUE multi-host layout: tuple axis over the (hosts, cols) hybrid mesh
-# (column split host-major; intra-host collectives ride ICI, only the final
-# reductions cross hosts — here gloo, on a pod DCN)
+# (column split host-major; intra-host collectives stay on the host's
+# interconnect, only the final reductions cross hosts — here gloo)
 ax = ("hosts", "cols")
 out3 = run_simplex_sharded(
     to_sharded_state(st, mesh2d, axis=ax), mesh2d, axis=ax)

@@ -1,8 +1,8 @@
 """Numeric-failure detection and the precision-ladder fallback.
 
 A f32 blowup poisons pricing with NaN; NaN < -tol is False, which an unguarded
-driver reads as "no improving column" and reports a bogus OPTIMAL (observed on
-TPU: a 512x512 dense instance 'converged' to z = nan). Every driver must
+driver reads as "no improving column" and reports a bogus OPTIMAL (a 512x512
+dense f32 instance 'converged' to z = nan). Every driver must
 instead report Status.NUMERIC, and solve_standard_form must escalate
 f32 -> f64 -> exact host simplex.
 """
@@ -19,7 +19,6 @@ from tpulp.model.lower import lower_to_standard_form
 from tpulp.solve import run_simplex, solve_standard_form
 from tpulp.solve.api import solve_standard_form_host
 from tpulp.solve.blocked import run_simplex_blocked
-from tpulp.solve.blocked_pallas import run_simplex_blocked_pallas
 
 
 def _phase2_state(dtype=jnp.float32, m=4, n=6, seed=0):
@@ -47,12 +46,6 @@ class TestDriverNumericStatus:
 
     def test_blocked_driver_reports_numeric(self):
         out = run_simplex_blocked(
-            _poison(_phase2_state()),
-            SolverOptions.for_dtype(jnp.float32, max_iters=50), block=8)
-        assert int(out.status) == Status.NUMERIC
-
-    def test_pallas_driver_reports_numeric(self):
-        out = run_simplex_blocked_pallas(
             _poison(_phase2_state()),
             SolverOptions.for_dtype(jnp.float32, max_iters=50), block=8)
         assert int(out.status) == Status.NUMERIC

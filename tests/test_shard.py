@@ -268,8 +268,8 @@ class TestBatchGspmd2D:
 class TestHybridMesh:
     """(hosts, cols) hybrid layout: the column dimension split host-major
     over BOTH mesh axes (tuple axis names through every collective) — the
-    multi-host form where intra-host collectives ride ICI and only the
-    final reductions cross DCN."""
+    multi-host form where intra-host collectives ride NVLink and only the
+    final reductions cross the network."""
 
     def _bounded_state(self, seed=1, m=24, n=48):
         rng = np.random.default_rng(seed)

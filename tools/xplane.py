@@ -1,123 +1,123 @@
-"""Minimal XSpace (.xplane.pb) reader — no tensorflow dependency.
+"""Trace-to-metrics reduction for ``jax.profiler`` captures.
 
-`jax.profiler.trace` writes TPU device timelines as an XSpace protobuf;
-this module decodes just enough of the public xplane.proto schema
-(tensorflow/tsl/profiler/protobuf/xplane.proto) to aggregate per-op
-device time: XSpace.planes -> XPlane{name, lines, event_metadata} ->
-XLine{name, events} -> XEvent{metadata_id, duration_ps}.
+Reads an ``.xplane.pb`` with ``jax.profiler.ProfileData`` and reduces the
+device planes to the numbers the bench reports:
 
-Used by the round-5 kernel-profiling analysis (BENCH.md): the judge can
-re-run `python tools/xplane.py <trace.xplane.pb>` on any capture.
+* device time and event count per op name (the kernels XLA launched);
+* busy time: the union of the op intervals, across streams;
+* window: first op start to last op end on those planes;
+* idle share: 1 - busy / window.
+
+Device planes are chosen by an explicit name predicate, by default the
+GPU's (``/device:GPU:<n>``); lines by a second predicate, by default every
+line except the profiler's derived summaries (module/step/framework lines
+repeat the kernels' time). No matching plane, or no event on the chosen
+lines, is an error, never an empty result.
+
+    python tools/xplane.py <trace dir or .xplane.pb> [--top 30]
 """
 
 from __future__ import annotations
 
-import struct
-import sys
+import argparse
+import glob
+import os
 from collections import defaultdict
 
-
-def _varint(buf, i):
-    x = 0
-    s = 0
-    while True:
-        b = buf[i]
-        i += 1
-        x |= (b & 0x7F) << s
-        if not b & 0x80:
-            return x, i
-        s += 7
+GPU_PLANE_PREFIX = "/device:GPU:"
+DERIVED_LINE_PREFIXES = ("XLA Modules", "XLA Ops", "XLA TraceMe", "Steps",
+                         "Framework", "TensorFlow", "Source", "Launch Stats")
 
 
-def fields(buf):
-    """Yield (field_number, wire_type, value) over a protobuf message."""
-    i = 0
-    n = len(buf)
-    while i < n:
-        key, i = _varint(buf, i)
-        fn, wt = key >> 3, key & 7
-        if wt == 0:
-            v, i = _varint(buf, i)
-        elif wt == 2:
-            ln, i = _varint(buf, i)
-            v = buf[i:i + ln]
-            i += ln
-        elif wt == 5:
-            v = struct.unpack("<I", buf[i:i + 4])[0]
-            i += 4
-        elif wt == 1:
-            v = struct.unpack("<Q", buf[i:i + 8])[0]
-            i += 8
-        else:
-            raise ValueError(f"wire type {wt}")
-        yield fn, wt, v
+def is_gpu_plane(name: str) -> bool:
+    return name.startswith(GPU_PLANE_PREFIX)
 
 
-def parse_space(buf):
-    """-> list of planes: {name, lines: [{name, events: [(meta_id, dur_ps,
-    n_occ)]}], meta: {id: name}}."""
-    planes = []
-    for fn, _, v in fields(buf):
-        if fn != 1:
-            continue
-        plane = {"name": "", "lines": [], "meta": {}}
-        for pf, _, pv in fields(v):
-            if pf == 2:
-                plane["name"] = pv.decode(errors="replace")
-            elif pf == 3:
-                line = {"name": "", "events": []}
-                for lf, _, lv in fields(pv):
-                    if lf == 2:
-                        line["name"] = lv.decode(errors="replace")
-                    elif lf == 4:
-                        mid = dur = occ = 0
-                        for ef, _, ev in fields(lv):
-                            if ef == 1:
-                                mid = ev
-                            elif ef == 3:
-                                dur = ev
-                            elif ef == 5:
-                                occ = ev
-                        line["events"].append((mid, dur, occ))
-                plane["lines"].append(line)
-            elif pf == 4:
-                # map<int64, XEventMetadata> entry: key=1, value=2
-                k = None
-                name = ""
-                for mf, _, mv in fields(pv):
-                    if mf == 1:
-                        k = mv
-                    elif mf == 2:
-                        for xf, _, xv in fields(mv):
-                            if xf == 2:
-                                name = xv.decode(errors="replace")
-                if k is not None:
-                    plane["meta"][k] = name
-        planes.append(plane)
-    return planes
+def is_op_line(name: str) -> bool:
+    return not name.startswith(DERIVED_LINE_PREFIXES)
 
 
-def op_table(path, top=30):
-    planes = parse_space(open(path, "rb").read())
-    out = []
-    for plane in planes:
-        agg = defaultdict(lambda: [0, 0])  # name -> [dur_ps, count]
-        for line in plane["lines"]:
-            for mid, dur, occ in line["events"]:
-                name = plane["meta"].get(mid, f"#{mid}")
-                a = agg[name]
-                a[0] += dur
-                a[1] += max(occ, 1)
-        rows = sorted(agg.items(), key=lambda kv: -kv[1][0])[:top]
-        out.append((plane["name"],
-                    [(n, d / 1e6, c) for n, (d, c) in rows]))
-    return out
+def find_xplane(path: str) -> str:
+    """``path`` itself, or the newest ``*.xplane.pb`` under it."""
+    if os.path.isfile(path):
+        return path
+    found = sorted(glob.glob(os.path.join(path, "**", "*.xplane.pb"),
+                             recursive=True), key=os.path.getmtime)
+    if not found:
+        raise FileNotFoundError(f"no .xplane.pb under {path}")
+    return found[-1]
+
+
+def _union_ns(intervals) -> int:
+    busy = 0
+    end = None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy
+
+
+def reduce_trace(path: str, plane=is_gpu_plane, line=is_op_line) -> dict:
+    """Per-op device time and busy/idle share of one trace (see module doc).
+
+    Returns ``{"planes", "lines", "ops": {name: (ns, count)}, "n_events",
+    "busy_ns", "window_ns", "idle_share"}``; ``ops`` is sorted by time."""
+    from jax.profiler import ProfileData
+
+    profile = ProfileData.from_file(find_xplane(path))
+    planes = [p for p in profile.planes if plane(p.name)]
+    if not planes:
+        names = [p.name for p in profile.planes]
+        raise ValueError(f"no trace plane matches; planes are {names}")
+    ops = defaultdict(lambda: [0, 0])
+    intervals = []
+    lines = []
+    for p in planes:
+        for ln in p.lines:
+            if not line(ln.name):
+                continue
+            lines.append(f"{p.name}/{ln.name}")
+            for ev in ln.events:
+                dur = float(ev.duration_ns)
+                start = float(ev.start_ns)
+                acc = ops[ev.name]
+                acc[0] += dur
+                acc[1] += 1
+                intervals.append((start, start + dur))
+    if not intervals:
+        raise ValueError(f"no events on the chosen lines of planes "
+                         f"{[p.name for p in planes]}")
+    window = max(e for _, e in intervals) - min(s for s, _ in intervals)
+    busy = _union_ns(intervals)
+    return {
+        "planes": [p.name for p in planes],
+        "lines": lines,
+        "ops": dict(sorted(((k, (v[0], v[1])) for k, v in ops.items()),
+                           key=lambda kv: -kv[1][0])),
+        "n_events": len(intervals),
+        "busy_ns": busy,
+        "window_ns": window,
+        "idle_share": 1.0 - busy / window if window > 0 else 0.0,
+    }
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("path")
+    ap.add_argument("--top", type=int, default=30)
+    args = ap.parse_args(argv)
+    r = reduce_trace(args.path)
+    print(f"planes {r['planes']}; lines {r['lines']}")
+    print(f"{r['n_events']} device events; busy {r['busy_ns'] / 1e6:.3f} ms "
+          f"of a {r['window_ns'] / 1e6:.3f} ms window "
+          f"(idle share {r['idle_share']:.4f})")
+    for name, (ns, cnt) in list(r["ops"].items())[:args.top]:
+        print(f"  {ns / 1e6:10.3f} ms  x{cnt:<7d} {name[:110]}")
 
 
 if __name__ == "__main__":
-    for plane_name, rows in op_table(sys.argv[1]):
-        total = sum(ms for _, ms, _ in rows)
-        print(f"\n=== plane {plane_name!r} (top {len(rows)}, "
-              f"{total:.2f} ms shown) ===")
-        for name, ms, cnt in rows:
-            print(f"  {ms:10.3f} ms  x{cnt:<6d} {name[:110]}")
+    main()

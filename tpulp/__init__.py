@@ -1,9 +1,9 @@
-"""tpulp — a TPU-native linear & mixed-integer programming framework.
+"""tpulp — a device-native linear & mixed-integer programming framework.
 
-Built from scratch on JAX/XLA/Pallas with the capability surface of the
+Built from scratch on JAX/XLA with the capability surface of the
 reference ``lpsol`` package (tkoz0/linear-program-solver) plus the layers it
 promised but never implemented (LinProg lowering, MILP branch-and-bound), and
-new TPU-first layers: a jitted device simplex, batched (vmapped) solving, and
+new accelerator layers: a jitted device simplex, batched (vmapped) solving, and
 a column-sharded multi-chip mode. See SURVEY.md for the full blueprint.
 
 Public API (reference parity, ``lpsol/__init__.py``): Tableau, Simplex,

@@ -271,9 +271,8 @@ def main(argv=None) -> int:
     p1.add_argument("--node-encoding", default="rows",
                     choices=["rows", "spans"], dest="node_encoding",
                     help="MILP node encoding. 'spans' (bound-free tableaus) "
-                         "is EXPERIMENTAL and measured ~58x slower than "
-                         "'rows' on the set-cover bench (BENCH.md): its win "
-                         "condition needs a bounded-state dual simplex with "
+                         "is EXPERIMENTAL and slower than 'rows' on set "
+                         "cover (cold waves only): its win condition needs a bounded-state dual simplex with "
                          "device node templates, which is not built. Keep "
                          "the default unless reproducing that analysis")
     p1.add_argument("--certificates", action="store_true",
@@ -347,4 +346,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     sys.exit(main())

@@ -2,7 +2,7 @@
 
 The in-program collectives (pricing all_gather, entering-column psum, pmin)
 live with the drivers in ``tpulp.shard``; this package owns the process
-bring-up and DCN/ICI-aware mesh construction around them.
+bring-up and host-aware mesh construction around them.
 """
 
 from .distributed import (

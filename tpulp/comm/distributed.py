@@ -7,11 +7,12 @@ multi-host tpulp run needs:
 
 1. ``init_distributed()`` — process bring-up. Wraps
    ``jax.distributed.initialize`` with environment autodetection (explicit
-   args > JAX_COORDINATOR_ADDRESS-style env vars > TPU pod metadata, which
-   ``jax.distributed`` resolves itself on real pods). Idempotent.
+   args > JAX_COORDINATOR_ADDRESS-style env vars > whatever
+   ``jax.distributed`` resolves itself, e.g. under SLURM). Idempotent.
 2. ``global_device_mesh()`` — a Mesh over ALL processes' devices with the
-   DCN (cross-host) axis OUTERMOST: collectives along the inner axes then
-   ride ICI within a slice, and only the outer-axis reductions cross DCN.
+   cross-host axis OUTERMOST: collectives along the inner axes then ride
+   NVLink within a host, and only the outer-axis reductions cross the
+   network between hosts.
    This is the layout the sharded drivers assume: the "cols" axis maps
    hosts x chips so each host owns a contiguous column block.
 3. ``process_local_lanes()`` — which global column shards this process owns
@@ -58,8 +59,7 @@ def init_distributed(
 
     Argument resolution order: explicit args > ``TPULP_COORDINATOR`` /
     ``TPULP_NUM_PROCESSES`` / ``TPULP_PROCESS_ID`` env vars > whatever
-    ``jax.distributed.initialize`` can autodetect (TPU pod metadata, SLURM,
-    etc.). With no configuration at all this is a no-op single-process
+    ``jax.distributed.initialize`` can autodetect (SLURM, etc.). With no configuration at all this is a no-op single-process
     bring-up — safe to call unconditionally at program start. Idempotent:
     calling twice is a no-op.
     """
@@ -96,10 +96,11 @@ def global_device_mesh(
 ) -> Mesh:
     """A mesh over every device of every process.
 
-    Multi-process: a 2D ``(hosts, cols)`` mesh with the DCN axis OUTERMOST —
-    device order within each row is the process's own devices, so "cols"
-    collectives (the per-pivot psum/all_gather of the sharded drivers) stay
-    on ICI and only cross-host reductions touch DCN. Callers that want a
+    Multi-process: a 2D ``(hosts, cols)`` mesh with the cross-host axis
+    OUTERMOST — device order within each row is the process's own devices,
+    so "cols" collectives (the per-pivot psum/all_gather of the sharded
+    drivers) stay on NVLink within a host and only cross-host reductions
+    touch the network. Callers that want a
     flat 1D column mesh over everything (2-host column partitioning,
     BASELINE config 5) can reshape with ``.flatten()`` semantics by passing
     the mesh's device array to ``Mesh(arr.reshape(-1), (axis,))``.
@@ -114,7 +115,7 @@ def global_device_mesh(
     arr = np.empty((n_proc, per_proc), dtype=object)
     for d in devs:
         # jax orders devices by process; place each in its process row in
-        # local order so the ICI axis is contiguous per host
+        # local order so the in-host axis is contiguous per host
         arr[d.process_index][d.id % per_proc] = d
     return Mesh(arr, (dcn_axis, axis))
 

@@ -1,6 +1,6 @@
 """Device tableau state and solver options.
 
-TPU-first redesign of the reference's tableau + simplex state
+Device-first redesign of the reference's tableau + simplex state
 (tableau.py:36-52, simplex.py:32-33). Key differences, all driven by XLA's
 static-shape compilation model (SURVEY.md §7 "hard parts"):
 

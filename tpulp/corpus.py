@@ -13,7 +13,7 @@ combinatorial constructions, so instances can be far larger than exact host
 solving allows) or from the exact host simplex at build time.
 
 Used by tests/test_corpus.py (every device driver x every case) and by
-``bench.py --corpus`` (TPU parity + throughput sweep).
+``bench.py --mode corpus`` (on-device parity sweep).
 """
 
 from __future__ import annotations

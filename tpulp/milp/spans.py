@@ -14,9 +14,9 @@ bounded-variable waves"): the root is lowered with ``simple_bounds=True``
 
 so a knapsack node's tableau is 1 row instead of 29. Waves run COLD through
 the vmapped bounded-variable driver (no dual warm start exists for bounded
-states yet — measured tradeoff recorded in BENCH.md); incumbents come from
-the batched extractor's exact refinement + bounded KKT certificate, so the
-reported optimum is exact, as in the rows encoding.
+states yet); incumbents come from the batched extractor's exact refinement
++ bounded KKT certificate, so the reported optimum is exact, as in the rows
+encoding.
 
 Select with ``solve_milp(node_encoding='spans')``. Requirements: every
 integer variable needs a finite lower bound and a plain shifted column

@@ -2,9 +2,9 @@
 
 The reference solver never needed scaling because every pivot is exact
 rational arithmetic (/root/reference/lpsol/tableau.py:295-308). The float
-device substitute does: measured on TPU, dense ill-scaled systems lose
-phase-1 fidelity (BENCH.md scale probe — f64 phase 1 falsely reporting
-infeasible), and every production LP code answers with a geometric-mean /
+device substitute does: dense ill-scaled systems lose phase-1 fidelity
+(f64 phase 1 falsely reporting infeasible), and every production LP code
+answers with a geometric-mean /
 Curtis-Reid-style row-column equilibration pass. This module is that pass,
 designed for the exact-ladder architecture:
 

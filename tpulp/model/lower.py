@@ -19,7 +19,7 @@ Design (all exact ``Fraction`` arithmetic; floats only at ``to_dense``):
 4. Integer variables may get dedicated bound rows (``integer_bound_rows=True``)
    so branch-and-bound nodes differ ONLY in the b vector — every B&B node then
    shares one static shape, which is what makes batched (vmapped) node solving
-   possible on TPU.
+   possible on the device.
 
 The result carries an exact recovery map (column values -> original variable
 values) and a basis hint (slack column per row where available) so Phase 1

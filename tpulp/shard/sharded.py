@@ -6,7 +6,7 @@ axis (``"cols"``), optionally combined with a batch axis (``"batch"``) for
 data-parallel batches of LPs — the 2D mesh (batch, cols) is this framework's
 (dp, tp) layout. Per BASELINE.json config 5.
 
-Communication pattern per pivot (rides ICI within a slice, DCN across):
+Communication pattern per pivot (NVLink within a host, the network across):
 
 1. pricing: each shard reduces its local reduced costs to a (value, index)
    candidate; an ``all_gather`` of P pairs + replicated argmin picks the
@@ -56,8 +56,11 @@ __all__ = [
 # ---------------------------------------------------------------------------
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "cols") -> Mesh:
+    """A 1D mesh over the first ``n_devices`` devices (all by default)."""
     devs = jax.devices()
     if n_devices is not None:
+        if n_devices > len(devs):
+            raise ValueError(f"need {n_devices} devices, have {len(devs)}")
         devs = devs[:n_devices]
     return Mesh(np.array(devs), (axis,))
 
@@ -66,7 +69,7 @@ def _axis_size(mesh: Mesh, axis) -> int:
     """Total shard count along ``axis`` (a mesh axis name or tuple of names —
     the tuple form is the multi-host (hosts, cols) hybrid layout, where the
     column dimension is split host-major so per-host blocks are contiguous
-    and intra-host collectives ride ICI)."""
+    and intra-host collectives stay on NVLink)."""
     if isinstance(axis, str):
         return mesh.shape[axis]
     return int(np.prod([mesh.shape[a] for a in axis]))

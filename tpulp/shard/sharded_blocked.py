@@ -1,9 +1,8 @@
 """Sharded rank-K blocked simplex: eta blocks on the column-partitioned path.
 
 The explicit shard_map driver in ``sharded.py`` is rank-1: every pivot does a
-full pass over each shard's local (m+2, n/P) tableau block, i.e. the ~2k
-pivots/s class per chip (BENCH.md step 2) — 80% scaling of a slow base. This
-driver brings the product-form eta scheme of ``solve/blocked.py`` to the
+full pass over each shard's local (m+2, n/P) tableau block — 80% scaling of
+a slow base would still be slow. This driver brings the product-form eta scheme of ``solve/blocked.py`` to the
 sharded layout so the per-pivot work drops to O(n/P + m) vector updates and
 the tableau is touched once per K pivots:
 
@@ -27,7 +26,7 @@ the tableau is touched once per K pivots:
   remains per pivot: the pricing gathers/pmins (one latency round, they
   are mutually independent) and the fused column fetch that depends on
   them.
-* the flush is purely local: ``T_local += U^T Vl`` (a rank-K MXU update of
+* the flush is purely local: ``T_local += U^T Vl`` (a rank-K matmul update of
   each shard's block) and ``rhs += U^T vr``, once per K pivots.
 
 Decision logic (pricing, ratio test, stall/Bland switch, phase transitions,
@@ -384,8 +383,9 @@ def _sharded_blocked_driver(opts: SolverOptions, stall_limit: int,
                     c, opts, stall_limit, n_global, max_iters, axis),
                 carry)
             # rank-K flush: purely local on each shard's column block
-            # HIGHEST: TPU f32 matmuls default to bf16 MXU inputs, which
-            # corrupts the eta flush (see tpulp.solve.blocked)
+            # HIGHEST: a default-precision f32 matmul may round its inputs
+            # to TF32 (~10 mantissa bits), which corrupts the eta flush
+            # (see tpulp.solve.blocked)
             T = carry.s.T + jnp.einsum(
                 'km,kn->mn', carry.U, carry.Vl, preferred_element_type=dtype,
                 precision=lax.Precision.HIGHEST)

@@ -7,7 +7,7 @@ fallback, checked teaching pivot, the four pivot-rule entry points
 (findPivotStandard / findPivotMinIndex / findPivotMaxIncrease / findPivotAll),
 and basis/BFS accessors.
 
-This class doubles as the exact correctness oracle for the TPU device solver
+This class doubles as the exact correctness oracle for the device solver
 (``tpulp.solve``): tests compare f64 device objectives against its rational
 results.
 

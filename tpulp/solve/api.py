@@ -27,12 +27,44 @@ from .refine import (
 )
 
 __all__ = [
+    "ENGINES",
     "Solution",
+    "choose_engine",
     "solve_lp",
     "solve_standard_form",
     "solve_standard_form_host",
     "state_from_standard_form",
 ]
+
+
+# single-device engines ``solve_standard_form(driver=...)`` accepts
+ENGINES = ("auto", "rank1", "blocked", "refreshed")
+
+# tableau elements ((m+2) x (n+1)) from which the rank-K blocked driver
+# replaces the rank-1 one: below it a full-tableau update per pivot is cheap
+# and the eta bookkeeping buys nothing
+BLOCKED_MIN_ELEMS = 200_000
+
+
+def choose_engine(m: int, n: int, pricing: str = "default",
+                  rung: str = "device") -> str:
+    """The single-device engine for an ``m``-row, ``n``-column standard form.
+
+    ``rung='device'`` is the first rung of the precision ladder (the
+    ``driver='auto'`` choice); ``rung='refreshed'`` picks the per-segment
+    engine of the periodic-refactorization rung. Both run the rank-1 driver
+    below ``BLOCKED_MIN_ELEMS`` tableau elements and the rank-K blocked
+    driver above it; the refreshed rung also takes the blocked driver for
+    devex pricing, whose weight lane the rank-1 segment driver lacks. The
+    choice is the same on every backend and for every iterate dtype."""
+    if rung not in ("device", "refreshed"):
+        raise ValueError(f"unknown ladder rung {rung!r}")
+    elems = (m + 2) * (n + 1)
+    if elems >= BLOCKED_MIN_ELEMS:
+        return "blocked"
+    if rung == "refreshed" and pricing == "devex":
+        return "blocked"
+    return "rank1"
 
 
 @dataclasses.dataclass
@@ -204,17 +236,15 @@ def solve_standard_form(
 
     ``driver`` selects the single-device engine: 'rank1' (full-tableau
     update per pivot — fastest for small tableaus), 'blocked' (rank-K eta
-    blocks, ~K× less tableau traffic), 'pallas' (the persistent-VMEM
-    kernel — the 13× bench headline engine, compiled TPU only), or 'auto'
-    (DEFAULT): rank-1 below ~200k tableau elements, above that the Pallas
-    kernel on a real TPU backend and the blocked driver elsewhere. Devex
-    pricing rides every single-device engine (rank-1 / blocked / pallas);
+    blocks, ~K× less tableau traffic), 'refreshed' (periodic
+    refactorization, the ladder's depth-robust rung), or 'auto' (DEFAULT):
+    ``choose_engine`` — rank-1 below ~200k tableau elements, blocked above,
+    on every backend. Devex pricing rides every single-device engine;
     simple_bounds lowerings pin the bounded engines (solo or the SHARDED
     bounded driver when a mesh is given) and mesh solving otherwise pins
     the sharded drivers. ``pricing='devex'`` rides the SOLO bounded driver
-    (round 5 — flips leave the devex frame untouched, see
-    ``tpulp.solve.bounded``); on the sharded bounded driver it raises
-    (no silent option-dropping).
+    (flips leave the devex frame untouched, see ``tpulp.solve.bounded``);
+    on the sharded bounded driver it raises (no silent option-dropping).
 
     ``fallback='auto'`` climbs a precision ladder on numeric failure (the
     drivers report Status.NUMERIC when f32 iterates go non-finite; the
@@ -230,6 +260,10 @@ def solve_standard_form(
     refinement + certificate pipeline as a single-device solve; precision
     escalation falls back to a single-device/host solve (the ladder's
     correctness, not its parallelism, is the contract)."""
+    if driver not in ENGINES:
+        raise ValueError(
+            f"unknown driver {driver!r}; the single-device engines are "
+            f"{', '.join(repr(e) for e in ENGINES)}")
     if options is None:
         options = SolverOptions.for_dtype(dtype)
     if sf.trivially_infeasible:
@@ -266,7 +300,7 @@ def solve_standard_form(
         # auto-select devex for equality-heavy shapes, the same way engines
         # are auto-selected: phase-1 depth scales with rows lacking a basic
         # column, where devex measured ~15x fewer pivots at exact corpus
-        # parity (BENCH.md, r3). Small or slack-rich instances keep Dantzig
+        # parity. Small or slack-rich instances keep Dantzig
         # — the weight pass buys nothing there and devex's unbounded-ray
         # detection is slower (tpulp.solve.devex module doc). Callers pin a
         # rule explicitly with pricing='dantzig'/'devex'.
@@ -377,19 +411,7 @@ def solve_standard_form(
             out = warm_out
             eng = "warm-dual"
         if eng == "auto":
-            import jax
-
-            elems = (state.m + 2) * (state.n + 1)
-            if elems < 200_000:
-                eng = "rank1"
-            elif (elems >= 4_000_000
-                  and jax.default_backend() not in ("cpu",)):
-                # the Mosaic kernel costs minutes of per-shape compile:
-                # worth it only when the tableau is big enough that its
-                # ~10x throughput edge over the jnp blocked driver pays
-                eng = "pallas"
-            else:
-                eng = "blocked"
+            eng = choose_engine(state.m, state.n, pricing)
         if eng == "warm-dual":
             pass  # `out` already holds the dual re-optimized terminal state
         elif eng == "rank1":
@@ -406,14 +428,6 @@ def solve_standard_form(
             opts_eng = dataclasses.replace(options, rule=RULE_DEVEX) \
                 if pricing == "devex" else options
             out = run_simplex_blocked(state, opts_eng, block=block)
-        elif eng == "pallas":
-            from ..core.state import RULE_DEVEX
-            from .blocked_pallas import run_simplex_blocked_pallas
-
-            opts_eng = dataclasses.replace(options, rule=RULE_DEVEX) \
-                if pricing == "devex" else options
-            out = run_simplex_blocked_pallas(state, opts_eng,
-                                             block=max(block, 128))
         elif eng == "refreshed":
             # periodic-refactorization driver (tpulp.solve.refresh): the
             # depth-robust rung — segments of device pivots with the
@@ -421,33 +435,16 @@ def solve_standard_form(
             # growth-bounding ratio tie-break. Reached automatically by
             # the precision ladder; selectable directly for hard deep
             # instances.
-            import jax
-
             from ..core.state import RULE_DEVEX
             from .refresh import run_simplex_refreshed
 
             opts_eng = dataclasses.replace(options, rule=RULE_DEVEX) \
                 if pricing == "devex" else options
-            elems = (state.m + 2) * (state.n + 1)
-            seg = 512
-            if (elems >= 4_000_000
-                    and jax.default_backend() not in ("cpu",)
-                    and canonical_dtype(dtype) == jnp.dtype(np.float32)):
-                # big tableau on a real TPU: compiled-speed segments with
-                # f64 refactorization between them (r5 — the scheme that
-                # carries the 127k-pivots/s kernel into the deep-phase-1
-                # regime where plain f32 fidelity runs out)
-                ref_engine = "pallas"
-                seg = 2048
-            elif pricing == "devex" or elems >= 200_000:
-                ref_engine = "blocked"
-            else:
-                ref_engine = "rank1"
             out = run_simplex_refreshed(
                 c_d, A_d, b_d, sf.basis_hint, opts_eng, dtype=dtype,
-                engine=ref_engine, block=block, segment=seg)
-        else:
-            raise ValueError(f"unknown driver {driver!r}")
+                engine=choose_engine(state.m, state.n, pricing,
+                                     rung="refreshed"),
+                block=block, segment=512)
     status_code = int(out.status)
     status = Status.NAMES.get(status_code, f"status_{status_code}")
     niter = int(out.niter)
@@ -462,9 +459,8 @@ def solve_standard_form(
             # rung 1: the refreshed + stabilized driver at the highest
             # device precision available — periodic refactorization from
             # original data repairs the drift that produced the failure
-            # (the measured 512-row f64 false-infeasible cliff lives here,
-            # BENCH.md scale probe), so most escalations never reach the
-            # academic-speed exact host rung.
+            # (the 512-row f64 false-infeasible cliff lives here), so most
+            # escalations never reach the academic-speed exact host rung.
             dt = jnp.float64 if have_f64 else jnp.float32
             opts1 = SolverOptions.for_dtype(
                 dt, rule=options.rule, max_iters=options.max_iters,
@@ -498,9 +494,9 @@ def solve_standard_form(
         return _escalate()
     if status != "optimal":
         # A float infeasible/unbounded verdict is tolerance-driven and can
-        # be FALSE (measured on TPU: phase-1 roundoff pushed the artificial
-        # optimum past infeas_tol on feasible equality-heavy instances — at
-        # f32 on the corpus, and at f64 on dense 512-row systems). Confirm
+        # be FALSE: phase-1 roundoff can push the artificial optimum past
+        # infeas_tol on feasible equality-heavy instances (f32 on the
+        # corpus, f64 on dense 512-row systems — tests/test_depth.py). Confirm
         # before reporting: depth 0 re-derives on the refreshed driver
         # (fresh refactorization); a refreshed-driver verdict (depth 1) was
         # already re-derived from freshly factorized data and is confirmed
@@ -626,7 +622,7 @@ def solve_lp(
     warm_start: Optional[Solution] = None,
     **opt_overrides,
 ) -> Solution:
-    """Solve an LP (ignoring any integrality) on the TPU device path.
+    """Solve an LP (ignoring any integrality) on the device path.
 
     ``warm_start`` (late r5): a prior ``Solution`` of a SAME-STRUCTURE
     program (same variables/constraints; RHS, objective, or both may

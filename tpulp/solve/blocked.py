@@ -1,15 +1,14 @@
 """Rank-K blocked simplex driver: amortize tableau traffic over K pivots.
 
-The rank-1 driver (``driver.py``) is HBM-bound: every pivot reads and writes
-the whole (m+2)x(n+1) tableau (~268MB per pivot at 4096x8192 f32). This
-driver uses the product-form-of-inverse idea reshaped for TPU:
+The rank-1 driver (``driver.py``) is memory-bound: every pivot reads and
+writes the whole (m+2)x(n+1) tableau (~268MB per pivot at 4096x8192 f32).
+This driver uses the product-form-of-inverse idea reshaped for a device:
 
 * K consecutive pivots run WITHOUT touching the tableau. Pivot t appends an
   eta pair: ``U[t, :] = (e_r - u)/piv`` (the elimination vector, ``u`` = the
   CURRENT entering column) and ``V[t, :] = current pivot row``; the tableau
   after t pivots is implicitly ``T0 + U^T V`` (eta index on the MAJOR axis
-  of both factors: a minor-axis dynamic_update_slice costs ~0.5ms/iter on
-  TPU vs ~1us for a row update — measured, an 8x whole-loop difference).
+  of both factors, so appending an eta is a contiguous row update).
 * Every decision is reconstructed cheaply:
     - reduced-cost rows (both phases) and the RHS column are maintained
       incrementally (O(n)/O(m) vector updates per pivot),
@@ -20,10 +19,10 @@ driver uses the product-form-of-inverse idea reshaped for TPU:
   phase-2 transition, basic-artificial cleanup pivots (their reconstruction
   row is fetched under a cond over an (n+1)-vector, cheap), dependent-row
   retirement, and optimal/unbounded/infeasible termination — so a block is
-  K uniform iterations plus ONE rank-K MXU flush (``T += U^T V``), a single
-  read+write of the tableau per K pivots.
+  K uniform iterations plus ONE rank-K matmul flush (``T += U^T V``), a
+  single read+write of the tableau per K pivots.
 
-Net HBM traffic per pivot: ~(2 m n)/K + K n (the V read), >20x below the
+Net memory traffic per pivot: ~(2 m n)/K + K n (the V read), >20x below the
 rank-1 driver for K=64.
 
 The decision logic (Dantzig/Bland pricing, ratio-test tie-breaks, stall
@@ -44,7 +43,8 @@ from jax import lax
 from ..core.state import (RULE_BLAND, RULE_DEVEX, TIE_MAXPIV, SimplexState,
                           SolverOptions, Status)
 
-__all__ = ["run_simplex_blocked", "run_simplex_blocked_batch"]
+__all__ = ["blocked_driver", "run_simplex_blocked",
+           "run_simplex_blocked_batch"]
 
 
 class _BlockCarry(NamedTuple):
@@ -274,11 +274,12 @@ def _compiled_blocked_driver(opts: SolverOptions, stall_limit: int, K: int):
                 0, K,
                 lambda _, c: _blocked_pivot(c, opts, stall_limit, max_iters),
                 carry)
-            # ONE rank-K MXU flush: T += U^T V (einsum contracts the leading
-            # eta axis of both factors without materializing a transpose)
-            # HIGHEST: the TPU default matmul precision truncates f32 MXU
-            # inputs to bf16, which corrupts long eta-flush chains (verified
-            # on-chip: a 326-pivot walk claimed a below-optimal objective)
+            # ONE rank-K matmul flush: T += U^T V (einsum contracts the
+            # leading eta axis of both factors without materializing a
+            # transpose). HIGHEST: a default-precision f32 matmul may run
+            # with reduced-mantissa inputs (TF32 keeps ~10 bits), and the
+            # error compounds over long eta-flush chains into a wrong
+            # terminal basis
             T = (carry.s.T.astype(dtype) + jnp.einsum(
                 'km,kn->mn', carry.U, carry.V, preferred_element_type=dtype,
                 precision=lax.Precision.HIGHEST)).astype(sdtype)
@@ -320,16 +321,27 @@ def run_simplex_blocked(
     block: int = 64,
 ) -> SimplexState:
     """Run the rank-K blocked driver to termination (single problem)."""
+    fn, args = blocked_driver(state, opts, block)
+    return fn(*args)
+
+
+def blocked_driver(
+    state: SimplexState,
+    opts: SolverOptions | None = None,
+    block: int = 64,
+):
+    """``(fn, args)``: the jitted rank-K driver for ``state`` and its call
+    arguments. ``fn(*args)`` solves; ``fn.lower(*args).compile()`` gives the
+    executable whose compile time and memory use a benchmark reports."""
     from ..core.state import eta_scaled_options
+    from .driver import _budget_key
 
     if opts is None:
         opts = SolverOptions.for_dtype(state.T.dtype)
     opts = eta_scaled_options(opts, state.T.dtype)
     stall_limit = opts.resolved_stall_limit(state.m, state.n)
-    from .driver import _budget_key
-
     driver = _compiled_blocked_driver(_budget_key(opts), stall_limit, block)
-    return driver(state, jnp.asarray(opts.max_iters, jnp.int32))
+    return driver, (state, jnp.asarray(opts.max_iters, jnp.int32))
 
 
 @functools.lru_cache(maxsize=16)

@@ -4,7 +4,7 @@ The row-based lowering turns every finite upper bound into a dense tableau
 row (``model/lower.py`` bound_cons), so a box-constrained LP's tableau grows
 by one row per bounded variable — quadratic extra area and exact-refinement
 cost (VERDICT r2 missing #3). This driver implements the classic
-upper-bound-flipping technique TPU-first, as a branchless ``lax.while_loop``
+upper-bound-flipping technique device-first, as a branchless ``lax.while_loop``
 state machine like ``solve.driver``:
 
 **Complement representation.** Every nonbasic variable sits at 0 in the

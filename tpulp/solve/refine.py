@@ -1,7 +1,7 @@
 """Final-basis refinement: recover high-precision solutions from low-precision
 iterates.
 
-TPU simplex iterates run in f32/f64 floating point, but the parity bar is a
+Device simplex iterates run in f32/f64 floating point, but the parity bar is a
 <=1e-9 relative objective gap against the reference's exact rationals
 (BASELINE.md). The production trick: the *basis* identified by the float
 iteration is discrete — once it is correct, re-solving ``B x_B = b`` against

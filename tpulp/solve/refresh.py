@@ -3,12 +3,11 @@
 The reference solver keeps the tableau exact through every pivot
 (/root/reference/lpsol/tableau.py:295-308 — all ``Fraction``s), so depth
 never degrades it. The float device substitute accumulates rank-1 update
-roundoff: measured on TPU, dense random-normal equality systems at 512
-rows end phase 1 with the artificial objective stuck above tolerance even
-at f64 (BENCH.md scale probe) — a FALSE infeasible. Production float
-simplex codes bound that drift by refactorizing the basis from original
-data every ~100 pivots; this module is the tableau-form equivalent,
-architected for the device driver:
+roundoff: dense random-normal equality systems at 512 rows can end phase 1
+with the artificial objective stuck above tolerance even at f64 — a FALSE
+infeasible. Production float simplex codes bound that drift by
+refactorizing the basis from original data every ~100 pivots; this module
+is the tableau-form equivalent, architected for the device driver:
 
 * the device runs the compiled ``lax.while_loop`` driver in SEGMENTS of
   ``segment`` pivots (no per-pivot host round trip — the host touches the
@@ -164,15 +163,6 @@ def run_simplex_refreshed(
             from .blocked import run_simplex_blocked
 
             return run_simplex_blocked(s, seg_opts, block=block)
-        if engine == "pallas":
-            # compiled-speed segments with host f64 refactorization between
-            # them: the mixed-precision scheme that carries f32 iterate
-            # speed into the deep-phase-1 regime (drift is bounded to one
-            # segment instead of the whole walk)
-            from .blocked_pallas import run_simplex_blocked_pallas
-
-            return run_simplex_blocked_pallas(s, seg_opts,
-                                              block=max(block, 128))
         return run_simplex(s, seg_opts)
 
     total = 0
